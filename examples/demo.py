@@ -15,9 +15,9 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-import tisph_tpu as tt
-from tisph_tpu.config import FluidBlock, SceneConfig
-from tisph_tpu.render.viewer import Viewer
+import tisph as tt
+from tisph.config import FluidBlock, SceneConfig
+from tisph.render.viewer import Viewer
 
 
 def main() -> int:

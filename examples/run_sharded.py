@@ -2,9 +2,11 @@
 or the rectangle decomposition (2-axis x × y, or 3-axis x × y × z box)
 via --mesh2d.
 
-On a TPU pod slice this runs across real chips; on a single host use CPU
-device emulation to exercise the same collectives:
+On a multi-GPU host this runs across the cards; use CPU device emulation
+to exercise the same collectives (the Pallas kernels then run in
+interpret mode):
 
+    python examples/run_sharded.py scenes/demo_3d.json --devices 4
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/run_sharded.py scenes/demo_3d.json --devices 8 --cpu
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -38,11 +40,14 @@ def main() -> int:
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
 
-    import tisph_tpu as tt
-    from tisph_tpu.parallel import (
+    import tisph as tt
+    from tisph.ops.neighbors import SweepConfig
+    from tisph.utils.compile_cache import use_compile_cache
+    from tisph.parallel import (
         ShardedWCSPH, ShardedWCSPHRect, make_mesh, make_mesh2d, make_mesh3d,
     )
 
+    use_compile_cache()
     scene = tt.load_scene(args.scene)
     state = tt.build_state(scene)
     if args.mesh2d:
@@ -57,7 +62,11 @@ def main() -> int:
                 else make_mesh3d(*sizes))
         print(f"mesh: {'x'.join(map(str, sizes))} "
               f"({mesh.devices.ravel()[0].platform})")
-        solver = ShardedWCSPHRect(scene, mesh)
+        # the rect meshes run the Pallas sweeps only: compiled on GPUs, in
+        # interpret mode on the emulated CPU mesh
+        cfg = (SweepConfig(impl="pallas", interpret=True)
+               if mesh.devices.ravel()[0].platform == "cpu" else None)
+        solver = ShardedWCSPHRect(scene, mesh, sweep_cfg=cfg)
         state = solver.bind(state)
         bufs = "/".join(f"H{L}={getattr(solver, f'cap_h{L}')}"
                         for L in solver._letters)
@@ -75,7 +84,7 @@ def main() -> int:
     if scene.emitters:
         # emitter scenes: the fused (emit -> step) rollout composes with
         # both meshes (1-D: global tail pool; 2-D: per-shard tails)
-        from tisph_tpu.geometry.emitter import make_emitter_state
+        from tisph.geometry.emitter import make_emitter_state
 
         emitters = [make_emitter_state(e, scene) for e in scene.emitters]
         # warm up with the SAME static num_steps (rollout_emit jits with

@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import tisph_tpu as tt
+import tisph as tt
 
 
 def _circle_points(n=12, cx=50.0, cy=50.0, r=30.0):
@@ -16,7 +16,7 @@ def _circle_points(n=12, cx=50.0, cy=50.0, r=30.0):
 
 class TestClustering:
     def test_two_groups(self):
-        from tisph_tpu.utils.dsu import cluster_points
+        from tisph.utils.dsu import cluster_points
 
         pts = np.concatenate([_circle_points(), _circle_points(cx=400.0)])
         groups = cluster_points(pts, 50.0)
@@ -25,7 +25,7 @@ class TestClustering:
         assert all_idx == list(range(24))
 
     def test_native_matches_numpy(self):
-        from tisph_tpu.utils.dsu import cluster_points
+        from tisph.utils.dsu import cluster_points
 
         rng = np.random.default_rng(0)
         pts = rng.uniform(0, 10, size=(300, 2))
@@ -35,7 +35,7 @@ class TestClustering:
         assert canon(g_native) == canon(g_numpy)
 
     def test_dsu_basic(self):
-        from tisph_tpu.utils.dsu import DSU
+        from tisph.utils.dsu import DSU
 
         d = DSU(5)
         d.union(0, 1)
@@ -49,7 +49,7 @@ class TestBPA2D:
     def test_circle_boundary(self):
         """The reference's own 12-point circle demo (render/bpa/d2.py:154):
         the walk must visit all 12 hull points."""
-        from tisph_tpu.render.bpa2d import extract_boundary_2d
+        from tisph.render.bpa2d import extract_boundary_2d
 
         pts = _circle_points()
         b = extract_boundary_2d(pts, radius=50.0)
@@ -60,7 +60,7 @@ class TestBPA2D:
         assert fans[0].shape == (10, 3)
 
     def test_native_matches_numpy_walk(self):
-        from tisph_tpu.render.bpa2d import extract_boundary_2d
+        from tisph.render.bpa2d import extract_boundary_2d
 
         pts = _circle_points(n=24)
         b1 = extract_boundary_2d(pts, radius=50.0, use_native=True)
@@ -68,7 +68,7 @@ class TestBPA2D:
         assert all(np.array_equal(a, c) for a, c in zip(b1.loops, b2.loops))
 
     def test_two_blobs(self):
-        from tisph_tpu.render.bpa2d import extract_boundary_2d
+        from tisph.render.bpa2d import extract_boundary_2d
 
         pts = np.concatenate([_circle_points(), _circle_points(cx=400.0)])
         b = extract_boundary_2d(pts, radius=50.0)
@@ -81,7 +81,7 @@ class TestCheckpoint:
         return scene, tt.build_state(scene)
 
     def test_npz_roundtrip(self, tmp_path):
-        from tisph_tpu import checkpoint
+        from tisph import checkpoint
 
         scene, state = self._small_state()
         solver = tt.WCSPH(scene)
@@ -104,8 +104,8 @@ class TestCheckpoint:
         reproduce the uninterrupted trajectory exactly — the EmitterState
         interval counters (``step``) and ``emitted`` totals are not
         derivable from the particle snapshot (VERDICT r4 #6)."""
-        from tisph_tpu import checkpoint
-        from tisph_tpu.geometry.emitter import make_emitter_state
+        from tisph import checkpoint
+        from tisph.geometry.emitter import make_emitter_state
 
         raw = {
             "configuration": {
@@ -152,7 +152,7 @@ class TestCheckpoint:
 
     def test_orbax_roundtrip(self, tmp_path):
         pytest.importorskip("orbax.checkpoint")
-        from tisph_tpu import checkpoint
+        from tisph import checkpoint
 
         scene, state = self._small_state()
         p = tmp_path / "orbax_ckpt"
@@ -163,7 +163,7 @@ class TestCheckpoint:
 
 class TestEmitter:
     def test_emission_into_pool(self):
-        from tisph_tpu.geometry.emitter import make_emitter_state, maybe_emit
+        from tisph.geometry.emitter import make_emitter_state, maybe_emit
 
         raw = {
             "configuration": {
@@ -199,7 +199,7 @@ class TestEmitter:
         assert (np.asarray(state.material)[n0:n0 + 2 * b] == 1).all()
 
     def test_emitted_particles_simulate(self):
-        from tisph_tpu.geometry.emitter import make_emitter_state, maybe_emit
+        from tisph.geometry.emitter import make_emitter_state, maybe_emit
 
         raw = {
             "configuration": {
@@ -233,7 +233,7 @@ class TestEmitter:
     def test_rollout_emit_matches_per_step_loop(self):
         """The fused single-dispatch rollout (SolverBase.rollout_emit) must
         reproduce the per-step host loop exactly."""
-        from tisph_tpu.geometry.emitter import make_emitter_state, maybe_emit
+        from tisph.geometry.emitter import make_emitter_state, maybe_emit
 
         raw = {
             "configuration": {
@@ -273,9 +273,9 @@ class TestEmitter:
         seg structure once per group, then emit + apply each substep.  The
         fused dispatch must reproduce a manual host loop with exactly that
         schedule, and the emission cadence must stay exact."""
-        from tisph_tpu.geometry.emitter import make_emitter_state, maybe_emit
-        from tisph_tpu.models.state import pad_state_capacity
-        from tisph_tpu.ops.neighbors import SweepConfig
+        from tisph.geometry.emitter import make_emitter_state, maybe_emit
+        from tisph.models.state import pad_state_capacity
+        from tisph.ops.neighbors import SweepConfig
 
         raw = {
             "configuration": {
@@ -297,8 +297,8 @@ class TestEmitter:
         solver = tt.WCSPH(
             scene,
             sweep_cfg=SweepConfig(
-                impl="pallas", block_size=128, window_cap=512, tile=128,
-                interpret=True, layout="seg", pad_capacity=8192,
+                impl="pallas", block_size=128, window_cap=512,
+                interpret=True, pad_capacity=8192,
                 resort_every=R,
             ),
         )
@@ -326,7 +326,7 @@ class TestEmitter:
 
 
 def test_domain_wireframe():
-    from tisph_tpu.utils.lines import domain_wireframe
+    from tisph.utils.lines import domain_wireframe
 
     pts, edges = domain_wireframe([0, 0, 0], [5, 3, 2])
     assert pts.shape == (8, 3)
@@ -342,7 +342,7 @@ class TestOrbitViewer:
     reference GGUI workflow, main_3d.py:8-46), tested headless."""
 
     def _scene3d(self):
-        import tisph_tpu as tt
+        import tisph as tt
         return tt.scene_from_dict({
             "configuration": {
                 "dim": 3, "domainStart": [0, 0, 0], "domainEnd": [2, 1, 1],
@@ -356,14 +356,14 @@ class TestOrbitViewer:
         })
 
     def test_from_lookat_roundtrip(self):
-        from tisph_tpu.render.orbit import OrbitCamera
+        from tisph.render.orbit import OrbitCamera
 
         cam = OrbitCamera.from_lookat((5.5, 2.5, 4.0), (-1.0, 0.0, 0.0))
         np.testing.assert_allclose(cam.position, [5.5, 2.5, 4.0], atol=1e-9)
         np.testing.assert_allclose(cam.target, [-1.0, 0.0, 0.0], atol=1e-9)
 
     def test_projection_geometry(self):
-        from tisph_tpu.render.orbit import OrbitCamera
+        from tisph.render.orbit import OrbitCamera
 
         # camera on +x axis looking at origin, y-up: the target projects to
         # the screen center, +y world is up, +z world is screen-left
@@ -379,7 +379,7 @@ class TestOrbitViewer:
         assert vis[:3].all()
 
     def test_orbit_pan_dolly_move(self):
-        from tisph_tpu.render.orbit import OrbitCamera
+        from tisph.render.orbit import OrbitCamera
 
         cam = OrbitCamera(target=[1, 1, 1], distance=3.0, azimuth=10.0,
                           elevation=30.0)
@@ -400,7 +400,7 @@ class TestOrbitViewer:
         assert cam.distance == 3.0
 
     def test_headless_render_and_events(self, tmp_path):
-        from tisph_tpu.render.orbit import OrbitViewer
+        from tisph.render.orbit import OrbitViewer
 
         scene = self._scene3d()
         v = OrbitViewer(scene, interactive=False, max_points=500)

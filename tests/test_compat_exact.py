@@ -13,7 +13,7 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
+import tisph as tt
 
 
 def _rollout(scene_path, compat, steps, solver_cls=tt.WCSPH):

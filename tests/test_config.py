@@ -6,8 +6,8 @@ import json
 import numpy as np
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.config import SolverParams
+import tisph as tt
+from tisph.config import SolverParams
 
 
 REFERENCE_STYLE_3D = {

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.utils.debug import checked_step, validate_state
+import tisph as tt
+from tisph.utils.debug import checked_step, validate_state
 
 
 @pytest.fixture(scope="module")

@@ -8,11 +8,11 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.config import SolverParams
-from tisph_tpu.models.state import MATERIAL_BOUNDARY, MATERIAL_FLUID, make_state
+import tisph as tt
+from tisph.config import SolverParams
+from tisph.models.state import MATERIAL_BOUNDARY, MATERIAL_FLUID, make_state
 
-from tests.oracle import OracleWCSPH
+from oracle import OracleWCSPH
 
 
 def _mixed_state(dim, seed, radius, domain_lo, domain_hi, n_fluid=60, n_boundary=30):
@@ -118,7 +118,7 @@ def test_single_step_matches_oracle(dim):
 @pytest.mark.parametrize("dim", [2, 3])
 def test_legacy_single_step_matches_v1_oracle(dim):
     """WCSPHLegacy vs the intended-V1 float64 oracle."""
-    from tests.oracle import OracleWCSPHV1
+    from oracle import OracleWCSPHV1
 
     radius = 0.025
     lo, hi = [0.0] * dim, [1.0] * dim

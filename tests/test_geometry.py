@@ -4,8 +4,8 @@ semantics, OBJ round-trip, and solid voxelization sanity."""
 import numpy as np
 import pytest
 
-from tisph_tpu.geometry.sampler import cube_lattice, count_cube_particles
-from tisph_tpu.geometry.mesh import (
+from tisph.geometry.sampler import cube_lattice, count_cube_particles
+from tisph.geometry.mesh import (
     TriMesh,
     box_mesh,
     load_obj,
@@ -13,7 +13,7 @@ from tisph_tpu.geometry.mesh import (
     save_obj,
     sphere_mesh,
 )
-from tisph_tpu.geometry.voxelize import voxelize_points, voxelize_solid
+from tisph.geometry.voxelize import voxelize_points, voxelize_solid
 
 
 def test_cube_lattice_matches_reference_arange():
@@ -105,7 +105,7 @@ def test_mesh_transform_pipeline():
 def test_voxelize_open_mesh_leak_recovery():
     """A sphere with a hole punched in it leaks the exterior flood; the
     voxelizer must detect the leak and recover the interior by closing."""
-    from tisph_tpu.geometry.mesh import TriMesh
+    from tisph.geometry.mesh import TriMesh
 
     mesh = sphere_mesh([0.5, 0.5, 0.5], 0.2, subdiv=3)
     # punch a hole: drop every face whose centroid is in the +z polar cap
@@ -134,7 +134,7 @@ def test_dragon_mesh_ingestion():
     pts = voxelize_points(mesh, pitch)
     # shell alone would be ~O(surface/pitch^2) ~ 4k voxels; a filled body is
     # far denser.  Interior must be nonempty (no leak).
-    from tisph_tpu.geometry.voxelize import _rasterize_surface
+    from tisph.geometry.voxelize import _rasterize_surface
     surf = _rasterize_surface(mesh, origin, pitch, filled.shape)
     assert filled.sum() > surf.sum()  # interior recovered
     lo, hi = mesh.bounds
@@ -144,10 +144,10 @@ def test_dragon_mesh_ingestion():
 
 def test_dragon_scene_builds():
     """The 500k bench scene ingests the Dragon as boundary particles."""
-    import tisph_tpu as tt
+    import tisph as tt
 
     scene = tt.load_scene("scenes/bench_3d_mesh_500k.json")
-    from tisph_tpu.geometry.builder import load_rigid_points
+    from tisph.geometry.builder import load_rigid_points
 
     pts = load_rigid_points(scene.rigid_bodies[0], scene)
     assert pts.shape[0] > 10000  # dragon at diameter pitch ~= 16k seeds

@@ -13,7 +13,7 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
+import tisph as tt
 
 HERE = os.path.dirname(__file__)
 

@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tisph_tpu.models.state import SimState, MATERIAL_FLUID, make_state
-from tisph_tpu.ops import grid as gridops
-from tisph_tpu.ops.neighbors import neighbor_sweep
+from tisph.models.state import SimState, MATERIAL_FLUID, make_state
+from tisph.ops import grid as gridops
+from tisph.ops.neighbors import neighbor_sweep
 
 
 def _random_state(n, dim, seed, lo, hi, volume0=1.0):
@@ -119,7 +119,7 @@ def test_blocked_sweep_edge_cells_complete():
     nd_ranges = gridops.cell_target_ranges(coords, spec)
     wstarts = gridops.block_window_starts(sorted_ids, coords, spec, 64)
 
-    from tisph_tpu.ops.neighbors import neighbor_sweep_blocked
+    from tisph.ops.neighbors import neighbor_sweep_blocked
 
     def pair(i, j, r_vec, r2, w, grad_w):
         return {"count": jnp.ones_like(r2)}
@@ -152,25 +152,21 @@ def test_csr_bounds_scan_matches_searchsorted():
 
 
 @pytest.mark.parametrize("dim,n", [(2, 300), (3, 700)])
-def test_csr_bounds_fast_matches_hist(dim, n):
-    """The pallas compare-reduce bounds kernel (interpret mode on the CPU
-    CI; compiled Mosaic under TISPH_TEST_TPU=1, tools/run_tpu_gate.py)
-    must equal the scatter-histogram CSR on sorted ids — including the
-    inactive sentinel tail, empty leading cells, and block-boundary
-    cells (the 1024-cell window decomposition)."""
-    import os
-
-    interpret = not os.environ.get("TISPH_TEST_TPU")
+def test_csr_bounds_hist_matches_searchsorted(dim, n):
+    """The two CSR builds — the scatter-histogram + prefix sum the seg
+    rebuild uses and the binary search over the sorted ids — must agree,
+    including the inactive sentinel tail, a neutralised -1 head (the
+    sharded halo's edge chunks) and empty leading cells."""
     spec = gridops.make_grid_spec(dim, [0.0] * dim, [1.0] * dim, 0.07,
                                   run_cap=64)
     state = _random_state(n, dim, seed=7, lo=0.0, hi=1.0)
     _, sorted_ids, _ = gridops.sort_state_by_cell(state, spec)
-    # park a tail at the inactive sentinel like the solver does
+    # park a tail at the inactive sentinel like the solver does, and a
+    # head at -1 like a neutralised halo chunk
     sorted_ids = sorted_ids.at[-n // 7:].set(spec.num_cells)
+    sorted_ids = sorted_ids.at[: n // 11].set(-1)
     a = np.asarray(gridops.csr_bounds_hist(sorted_ids, spec))
-    b = np.asarray(
-        gridops.csr_bounds_fast(sorted_ids, spec, interpret=interpret)
-    )
+    b = np.asarray(gridops.csr_bounds(sorted_ids, spec))
     np.testing.assert_array_equal(a, b)
 
 

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from tisph_tpu.ops.kernels import cubic_kernel, cubic_kernel_grad
+from tisph.ops.kernels import cubic_kernel, cubic_kernel_grad
 
 
 @pytest.mark.parametrize("dim", [1, 2, 3])
@@ -82,7 +82,7 @@ def test_gradient_zero_at_origin_and_outside():
 
 
 def test_eos():
-    from tisph_tpu.ops.eos import tait_pressure
+    from tisph.ops.eos import tait_pressure
 
     rho = jnp.asarray([900.0, 1000.0, 1100.0])
     rho_c, p = tait_pressure(rho, 1000.0, 50.0, 7.0)

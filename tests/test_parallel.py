@@ -7,8 +7,8 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.parallel import ShardedWCSPH, make_mesh
+import tisph as tt
+from tisph.parallel import ShardedWCSPH, make_mesh
 
 
 def _scene(radius=0.02):
@@ -74,7 +74,7 @@ def test_sharded_matches_single_device(n_devices):
 def test_sharded_pallas_matches_blocked():
     """The pallas-in-shard_map path (interpret mode on the CPU mesh) must
     reproduce the blocked-sharded trajectory."""
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.ops.neighbors import SweepConfig
 
     scene = _scene(radius=0.04)
     mesh = make_mesh(4)
@@ -86,7 +86,7 @@ def test_sharded_pallas_matches_blocked():
     s_p = ShardedWCSPH(
         scene, mesh,
         sweep_cfg=SweepConfig(impl="pallas", block_size=128, window_cap=1152,
-                              tile=128, interpret=True),
+                              interpret=True),
     )
     st_p = s_p.bind(tt.build_state(scene))
     for _ in range(3):
@@ -113,7 +113,7 @@ def test_sharded_metrics_finite():
 def test_sharded_emitter_composes():
     """maybe_emit is a pure scatter on the pytree, so it composes with the
     sharded step (tail pool slots live on the last shard after the sort)."""
-    from tisph_tpu.geometry.emitter import make_emitter_state, maybe_emit
+    from tisph.geometry.emitter import make_emitter_state, maybe_emit
 
     scene = tt.scene_from_dict(
         {
@@ -232,7 +232,7 @@ def test_sharded_seg_matches_blocked():
     """The seg layout inside shard_map (the flagship single-chip kernels,
     per shard, windows over the halo-extended array) must reproduce the
     blocked-sharded trajectory."""
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.ops.neighbors import SweepConfig
 
     scene = _scene(radius=0.04)
     mesh = make_mesh(4)
@@ -244,7 +244,7 @@ def test_sharded_seg_matches_blocked():
     s_p = ShardedWCSPH(
         scene, mesh,
         sweep_cfg=SweepConfig(impl="pallas", block_size=128, window_cap=1152,
-                              tile=128, interpret=True, layout="seg"),
+                              interpret=True),
     )
     st_p = s_p.bind(tt.build_state(scene))
     assert s_p.sweep_cfg.pad_capacity > 0  # bind sized the per-shard pad
@@ -263,12 +263,12 @@ def test_sharded_seg_amortized_matches_single_chip():
     build/apply split must reproduce the single-chip amortized trajectory
     — both sides rebuild on the same cadence, so the paths are
     algorithmically identical up to the halo extension."""
-    import tisph_tpu.models.wcsph as _w
-    from tisph_tpu.ops.neighbors import SweepConfig
+    import tisph.models.wcsph as _w
+    from tisph.ops.neighbors import SweepConfig
 
     scene = _scene(radius=0.04)
     cfg = dict(impl="pallas", block_size=128, window_cap=1152,
-               tile=128, interpret=True, layout="seg", resort_every=2)
+               interpret=True, resort_every=2)
 
     s1 = tt.WCSPH(scene, sweep_cfg=SweepConfig(**cfg))
     st1 = s1.bind(tt.build_state(scene))
@@ -406,7 +406,7 @@ def test_exchange_resort_run_deepens_edge():
 def _rigid_scene(tmp_path, body_density=300.0, radius=0.04):
     import json
 
-    from tisph_tpu.geometry.mesh import box_mesh, save_obj
+    from tisph.geometry.mesh import box_mesh, save_obj
 
     mesh_path = tmp_path / "box.obj"
     save_obj(box_mesh((0.4, 0.55, 0.4), (0.6, 0.7, 0.6)), mesh_path)
@@ -441,12 +441,12 @@ def test_sharded_rigid_coupled_matches_single_chip(tmp_path, resort_every):
     sweeps over the halo-extended shards, per-body reductions on the
     sharded arrays (GSPMD inserts the cross-shard all-reduces) — must
     reproduce the single-chip WCSPHRigid trajectory AND rigid state."""
-    from tisph_tpu.models.wcsph_rigid import WCSPHRigid
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.models.wcsph_rigid import WCSPHRigid
+    from tisph.ops.neighbors import SweepConfig
 
     scene = _rigid_scene(tmp_path)
-    cfg = dict(impl="pallas", block_size=128, window_cap=1152, tile=128,
-               interpret=True, layout="seg", resort_every=resort_every)
+    cfg = dict(impl="pallas", block_size=128, window_cap=1152,
+               interpret=True, resort_every=resort_every)
     steps = 3 if resort_every == 1 else 4
 
     s1 = WCSPHRigid(scene, sweep_cfg=SweepConfig(**cfg))
@@ -487,12 +487,11 @@ def test_sharded_plain_step_recomputes_boundary_volumes(tmp_path, mesh_kind):
     auto-selected for rigid scenes), so a missing bvol sweep would freeze
     boundary rows at build_state's uniform volume0 — a silent physics
     divergence the round-5 review caught in both sharded classes."""
-    from tisph_tpu.ops.neighbors import SweepConfig
-    from tisph_tpu.parallel import ShardedWCSPHRect, make_mesh2d
+    from tisph.ops.neighbors import SweepConfig
+    from tisph.parallel import ShardedWCSPHRect, make_mesh2d
 
     scene = _rigid_scene(tmp_path)
-    cfg = dict(impl="pallas", block_size=128, window_cap=1152, tile=128,
-               interpret=True, layout="seg")
+    cfg = dict(impl="pallas", block_size=128, window_cap=1152, interpret=True)
     steps = 3
 
     s1 = tt.WCSPH(scene, sweep_cfg=SweepConfig(**cfg),

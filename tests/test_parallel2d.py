@@ -7,9 +7,9 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.ops.neighbors import SweepConfig
-from tisph_tpu.parallel import (
+import tisph as tt
+from tisph.ops.neighbors import SweepConfig
+from tisph.parallel import (
     ShardedWCSPH, ShardedWCSPH2D, make_mesh, make_mesh2d,
 )
 
@@ -36,8 +36,7 @@ def _scene(radius=0.04):
     )
 
 
-_CFG = dict(impl="pallas", block_size=128, window_cap=1152, tile=128,
-            interpret=True, layout="seg")
+_CFG = dict(impl="pallas", block_size=128, window_cap=1152, interpret=True)
 
 
 def _canon(o):
@@ -296,7 +295,7 @@ def test_2d_emitter_composes():
     """Per-shard tail emission on the 2-D mesh: the fused rollout_emit
     must keep the emission cadence exact (counters tick every substep,
     all-or-nothing fire) even when the seed rectangle spans both cuts."""
-    from tisph_tpu.geometry.emitter import make_emitter_state
+    from tisph.geometry.emitter import make_emitter_state
 
     scene = _emitter_scene()
     mesh = make_mesh2d(2, 2)
@@ -329,7 +328,7 @@ def test_2d_emitter_matches_single_chip():
     beyond ~6 steps per-row comparison is meaningless for any two
     decompositions.  The emitter path was exonerated explicitly: the
     8-step divergence is byte-identical with emitters removed."""
-    from tisph_tpu.geometry.emitter import make_emitter_state
+    from tisph.geometry.emitter import make_emitter_state
 
     scene = _emitter_scene()
     cfg = dict(_CFG, resort_every=2)
@@ -366,7 +365,7 @@ def test_2d_emitter_respects_shard_headroom():
     is the only emitter entry point).  emit_frac=0 makes the guard block
     EVERY fire — pins that the threshold is live and all-or-nothing; the
     default 0.9 firing normally is covered by the equality gates."""
-    from tisph_tpu.geometry.emitter import make_emitter_state
+    from tisph.geometry.emitter import make_emitter_state
 
     scene = _emitter_scene()
     mesh = make_mesh2d(2, 2)
@@ -483,8 +482,8 @@ def test_2d_rigid_coupled_matches_single_chip(tmp_path):
     per-row ordering at f32 noise while the physics agrees to ~1e-7."""
     import json
 
-    from tisph_tpu.geometry.mesh import box_mesh, save_obj
-    from tisph_tpu.models.wcsph_rigid import WCSPHRigid
+    from tisph.geometry.mesh import box_mesh, save_obj
+    from tisph.models.wcsph_rigid import WCSPHRigid
 
     mesh_path = tmp_path / "box.obj"
     save_obj(box_mesh((0.4, 0.55, 0.4), (0.6, 0.7, 0.6)), mesh_path)

@@ -9,11 +9,11 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.ops.neighbors import SweepConfig
-from tisph_tpu.parallel import ShardedWCSPHRect, make_mesh3d
+import tisph as tt
+from tisph.ops.neighbors import SweepConfig
+from tisph.parallel import ShardedWCSPHRect, make_mesh3d
 
-from tests.test_parallel2d import _scene, _canon, _single_chip, _CFG
+from test_parallel2d import _scene, _canon, _single_chip, _CFG
 
 
 def test_3d_box_matches_single_chip():
@@ -69,9 +69,9 @@ def test_3d_box_emitter_matches_single_chip():
     straddles the x and z cuts, so seeds land in four different boxes.
     Must reproduce the single-chip rollout_emit trajectory (6-step horizon:
     the cross-decomposition comparison bound measured in test_parallel2d)."""
-    from tisph_tpu.geometry.emitter import make_emitter_state
+    from tisph.geometry.emitter import make_emitter_state
 
-    from tests.test_parallel2d import _canon as _canon2, _emitter_scene
+    from test_parallel2d import _canon as _canon2, _emitter_scene
 
     scene = _emitter_scene()
     cfg = dict(_CFG, resort_every=2)
@@ -114,8 +114,8 @@ def test_3d_box_rigid_coupled_matches_single_chip(tmp_path):
     gate's pairing argument."""
     import json
 
-    from tisph_tpu.geometry.mesh import box_mesh, save_obj
-    from tisph_tpu.models.wcsph_rigid import WCSPHRigid
+    from tisph.geometry.mesh import box_mesh, save_obj
+    from tisph.models.wcsph_rigid import WCSPHRigid
 
     mesh_path = tmp_path / "box.obj"
     save_obj(box_mesh((0.4, 0.55, 0.4), (0.6, 0.7, 0.6)), mesh_path)

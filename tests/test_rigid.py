@@ -8,8 +8,8 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.models.state import MATERIAL_BOUNDARY
+import tisph as tt
+from tisph.models.state import MATERIAL_BOUNDARY
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 

@@ -1,7 +1,8 @@
-"""Seg layout (grid.seg_plan + pallas row-confined logical-block sweeps):
-the layout is a pure re-indexing of the compact sorted array, so sweep
-outputs must match the jnp blocked sweep / brute force on the identical
-state, and the plan itself must be a consistent block partition."""
+"""Seg layout (grid.seg_plan + the Triton-route Pallas row-confined
+logical-block sweeps, in interpret mode on the CPU): the layout is a pure
+re-indexing of the compact sorted array, so sweep outputs must match the
+jnp blocked sweep / brute force on the identical state, and the plan
+itself must be a consistent block partition."""
 
 import dataclasses
 
@@ -10,32 +11,25 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import os
+import tisph as tt
 
-import tisph_tpu as tt
-
-# interpret mode on the CPU CI; TISPH_TEST_TPU=1 runs the real
-# Mosaic kernels on hardware (tools/run_tpu_gate.py records the
-# artifact)
-_INTERPRET = not os.environ.get("TISPH_TEST_TPU")
-from tisph_tpu.models.state import pad_state_capacity
-from tisph_tpu.ops import forces as F
-from tisph_tpu.ops import grid as gridops
-from tisph_tpu.ops.kernels import cubic_kernel
-from tisph_tpu.ops.neighbors import SweepConfig
-from tisph_tpu.ops.pallas import sweeps as ps
+_INTERPRET = True
+from tisph.models.state import pad_state_capacity
+from tisph.ops import forces as F
+from tisph.ops import grid as gridops
+from tisph.ops.kernels import cubic_kernel
+from tisph.ops.neighbors import SweepConfig
+from tisph.ops.pallas import sweeps as ps
 
 from test_pallas import _scene
 
 
-def _seg_setup(scene, cap=2048, pad_cap=8192, block=128, wcap=512,
-               tile=128, sub=1):
+def _seg_setup(scene, cap=2048, pad_cap=8192, block=128, wcap=512):
     state = tt.build_state(scene)
     solver = tt.WCSPH(
         scene,
         sweep_cfg=SweepConfig(impl="pallas", block_size=block, window_cap=wcap,
-                              tile=tile, interpret=_INTERPRET, layout="seg",
-                              pad_capacity=pad_cap, sub_slabs=sub),
+                              interpret=_INTERPRET, pad_capacity=pad_cap),
     )
     state = solver.bind(pad_state_capacity(state, cap))
     spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
@@ -43,7 +37,7 @@ def _seg_setup(scene, cap=2048, pad_cap=8192, block=128, wcap=512,
     plan = gridops.seg_plan(ids, spec, scfg.block_size,
                             scfg.pad_capacity // scfg.block_size)
     meta, _ = ps.seg_block_meta(
-        plan, ids, spec, scfg.block_size, scfg.window_cap, sub=sub
+        plan, ids, spec, scfg.block_size, scfg.window_cap
     )
     pack = ps.pack_state(
         state_s.x, state_s.v, state_s.density, state_s.pressure,
@@ -71,8 +65,8 @@ def test_seg_plan_is_consistent(dim):
     back = np.asarray(plan.back_idx)
     back_valid = np.asarray(plan.back_valid)
 
-    # starts are lane-aligned (the DMA grid)
-    assert (seg_start % 128 == 0).all()
+    # starts are block-aligned (SegMeta.iblk is in block units)
+    assert (seg_start % block == 0).all()
 
     # every active particle maps to a slot whose block agrees on position
     # and own id range; slots are unique (no two particles share one)
@@ -93,8 +87,7 @@ def test_seg_density_matches_bruteforce(dim):
     spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
 
     rho_blk = ps.density_sweep_seg(
-        pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-        tile=scfg.tile, interpret=_INTERPRET,
+        pack, meta, spec, params, scfg.block_size, interpret=_INTERPRET,
     )
     # compact kernel output: valid where plan.back_valid (all active
     # lanes here, asserted by test_seg_plan_roundtrip)
@@ -117,124 +110,14 @@ def test_seg_density_matches_bruteforce(dim):
     np.testing.assert_allclose(rho_p[fluid], rho_brute[fluid], rtol=2e-5)
 
 
-@pytest.mark.parametrize("dim", [2, 3])
-def test_seg_window_segmented_passes_match_single(dim, monkeypatch):
-    """Oversized window caps run as multiple VMEM-segment passes whose
-    outputs sum (soak regression: the adaptive regrow pushed window_cap to
-    11008 lanes, where the one-pass scratch exceeded Mosaic's 16 MiB
-    scoped-VMEM limit).  Pass q covers true lanes [q*S, (q+1)*S) of every
-    (block, row) range — an exact pair partition, so the segmented result
-    must equal the single pass up to fp32 reduction order (the lane
-    accumulators are reduced per pass)."""
-    scene = _scene(dim=dim)
-    solver, state_s, ids, plan, meta, pack = _seg_setup(scene, wcap=768)
-    spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
-
-    kw = dict(tile=scfg.tile, interpret=_INTERPRET)
-    rho1 = ps.density_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                scfg.window_cap, **kw)
-    rho, p = F.compute_pressures(rho1, params)
-    pack2 = ps.repack_eos(pack, rho, p)
-    dv1 = ps.force_sweep_seg(pack2, meta, spec, params, scfg.block_size,
-                             scfg.window_cap, **kw)
-
-    monkeypatch.setattr(ps, "_PASS_CAP_OVERRIDE", 256)
-    assert ps._seg_pass_lanes(spec.num_rows, ps.F_ROWS, 1, scfg.tile) == 256
-    rho_s = ps.density_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                 scfg.window_cap, **kw)
-    dv_s = ps.force_sweep_seg(pack2, meta, spec, params, scfg.block_size,
-                              scfg.window_cap, **kw)
-
-    valid = np.asarray(plan.back_valid)
-    np.testing.assert_allclose(np.asarray(rho_s)[valid],
-                               np.asarray(rho1)[valid], rtol=1e-6)
-    scale = np.abs(np.asarray(dv1)[valid]).max()
-    np.testing.assert_allclose(np.asarray(dv_s)[valid] / scale,
-                               np.asarray(dv1)[valid] / scale, atol=2e-6)
-
-
-@pytest.mark.parametrize("dim", [2, 3])
-@pytest.mark.parametrize("sub,block", [
-    (2, 128),
-    (4, 128),
-    # block=256 regression case: the round-3 per-sub output CONCATENATE
-    # along the lane axis hit a Mosaic backend-compile limitation here
-    # ("input offsets outside of the first tile"); the kernel now writes
-    # each sub-slab's own static sublane slice instead (round 4).
-    (2, 256),
-])
-def test_seg_sub_slab_matches_sub1(dim, sub, block):
-    """sub_slabs > 1 is a pure re-streaming of the same pair set: each
-    sub-slab's compacted stream holds (a superset of) the candidates of
-    ITS OWN i-lanes and the separable membership test selects the
-    identical pairs, so density and force must match the sub=1 kernel to
-    fp32 reduction-order tolerance (tile boundaries shift per stream)."""
-    scene = _scene(dim=dim)
-    _, _, _, _, meta1, pack = _seg_setup(scene, block=block)
-    solver, state_s, ids, plan, meta, _ = _seg_setup(scene, block=block,
-                                                     sub=sub)
-    spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
-
-    kw = dict(tile=scfg.tile, interpret=_INTERPRET)
-    rho1 = ps.density_sweep_seg(pack, meta1, spec, params, block,
-                                scfg.window_cap, **kw)
-    rho_s = ps.density_sweep_seg(pack, meta, spec, params, block,
-                                 scfg.window_cap, sub=sub, **kw)
-    rho, p = F.compute_pressures(rho1, params)
-    pack2 = ps.repack_eos(pack, rho, p)
-    dv1 = ps.force_sweep_seg(pack2, meta1, spec, params, block,
-                             scfg.window_cap, **kw)
-    dv_s = ps.force_sweep_seg(pack2, meta, spec, params, block,
-                              scfg.window_cap, sub=sub, **kw)
-    valid = np.asarray(plan.back_valid)
-    np.testing.assert_allclose(np.asarray(rho_s)[valid],
-                               np.asarray(rho1)[valid], rtol=1e-6)
-    scale = np.abs(np.asarray(dv1)[valid]).max()
-    np.testing.assert_allclose(np.asarray(dv_s)[valid] / scale,
-                               np.asarray(dv1)[valid] / scale, atol=2e-6)
-
-
-@pytest.mark.parametrize("tile", [128, 256])
-def test_seg_force_matches_blocked(tile):
-    """tile=256 also covers the compacted stream's tile-rounding tail
-    region (lanes past the last written chunk must stay inert — the
-    finite-zero pre-fill in _seg_sweep_kernel; a non-finite lane there
-    would NaN the whole block through reduce_v's coef * dx)."""
-    scene = _scene()
-    solver, state_s, ids, plan, meta, pack = _seg_setup(scene, tile=tile)
-    spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
-
-    scfg_b = SweepConfig(impl="blocked", block_size=128, window_cap=1024)
-    nd = gridops.build_neighbor_data(state_s, ids, spec, scfg_b)
-    rho = F.compute_densities(state_s, nd, spec, params, scfg_b)
-    rho, p = F.compute_pressures(rho, params)
-    state_s = dataclasses.replace(state_s, density=rho, pressure=p)
-    pack = ps.repack_eos(pack, rho, p)
-
-    dv_b = np.asarray(F.compute_forces(state_s, nd, spec, params, scfg_b))
-    dv_blk = ps.force_sweep_seg(
-        pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-        tile=scfg.tile, interpret=_INTERPRET,
-    )
-    dv_p = np.asarray(dv_blk)
-    fluid = np.asarray(state_s.material) == 1
-    scale = np.abs(dv_b[fluid]).max()
-    np.testing.assert_allclose(
-        dv_p[fluid] / scale, dv_b[fluid] / scale, atol=5e-6
-    )
-
-
-def test_seg_force_react_matches_separate_sweeps(tmp_path):
-    """The fused force+reaction mode must equal the separate force and
-    reaction sweeps EXACTLY (same per-pair arithmetic, per-i select):
-    fluid rows carry dv, boundary rows the reaction force."""
-    import json
-
-    from tisph_tpu.geometry.mesh import box_mesh, save_obj
+def _rigid_scene(tmp_path):
+    """Fluid block beside a box body: boundary rows for the bvol /
+    reaction / force_react modes and the boundary-aware block skip."""
+    from tisph.geometry.mesh import box_mesh, save_obj
 
     mesh_path = tmp_path / "box.obj"
     save_obj(box_mesh((0.35, 0.5, 0.35), (0.6, 0.75, 0.6)), mesh_path)
-    raw = {
+    return tt.scene_from_dict({
         "configuration": {
             "dim": 3, "domainStart": [0.0] * 3, "domainEnd": [1.0] * 3,
             "particleRadius": 0.04, "density0": 1000,
@@ -252,28 +135,121 @@ def test_seg_force_react_matches_separate_sweeps(tmp_path):
              "velocity": [0.1, -0.4, 0.2], "density": 1000.0,
              "color": [50, 100, 200]}
         ],
-    }
-    p = tmp_path / "scene.json"
-    p.write_text(json.dumps(raw))
-    scene = tt.load_scene(p)
+    })
+
+
+@pytest.mark.parametrize("mode", ["bvol", "reaction"])
+def test_seg_boundary_modes_match_blocked(mode, tmp_path):
+    """The boundary-volume denominator and the fluid->boundary reaction
+    force (the rigid coupling's modes) against the jnp blocked sweeps on
+    the identical sorted state, on every consumed boundary row."""
+    scene = _rigid_scene(tmp_path)
+    solver, state_s, ids, plan, meta, pack = _seg_setup(scene)
+    spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
+    scfg_b = SweepConfig(impl="blocked", block_size=128, window_cap=2048)
+    nd = gridops.build_neighbor_data(state_s, ids, spec, scfg_b)
+    keep = np.asarray(plan.back_valid) & (np.asarray(state_s.material) == 0)
+    assert keep.any()
+    if mode == "bvol":
+        ref = np.asarray(
+            F.compute_boundary_volumes(state_s, nd, spec, params, scfg_b))
+        delta = np.asarray(ps.bvol_sweep_seg(
+            pack, meta, spec, params, scfg.block_size, interpret=_INTERPRET))
+        np.testing.assert_allclose(1.0 / delta[keep], ref[keep], rtol=2e-5)
+        return
+    rho = F.compute_densities(state_s, nd, spec, params, scfg_b)
+    rho, p = F.compute_pressures(rho, params)
+    state_s = dataclasses.replace(state_s, density=rho, pressure=p)
+    pack = ps.repack_eos(pack, rho, p)
+    ref = np.asarray(
+        F.compute_rigid_reactions(state_s, nd, spec, params, scfg_b))
+    out = np.asarray(ps.reaction_sweep_seg(
+        pack, meta, spec, params, scfg.block_size, interpret=_INTERPRET))
+    scale = np.abs(ref[keep]).max()
+    assert scale > 0
+    np.testing.assert_allclose(out[keep] / scale, ref[keep] / scale,
+                               atol=5e-6)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+@pytest.mark.parametrize("bi,tile", [(16, 32), (64, 16), (128, 64)])
+def test_seg_launch_geometry_is_a_retiling(dim, bi, tile, monkeypatch):
+    """The launch geometry (i lanes per program, j-tile width; tuned per
+    device kind in ps.LAUNCH) only re-tiles the same pair set: density
+    and force must match the default geometry to fp32 reduction-order
+    tolerance (tile boundaries move, so do the per-tile partial sums)."""
+    scene = _scene(dim=dim)
+    solver, state_s, ids, plan, meta, pack = _seg_setup(scene)
+    spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
+    block = scfg.block_size
+
+    def sweeps():
+        rho = ps.density_sweep_seg(pack, meta, spec, params, block,
+                                   interpret=_INTERPRET)
+        r, p = F.compute_pressures(rho, params)
+        dv = ps.force_sweep_seg(ps.repack_eos(pack, r, p), meta, spec,
+                                params, block, interpret=_INTERPRET)
+        return np.asarray(rho), np.asarray(dv)
+
+    rho1, dv1 = sweeps()
+    geom = (bi, tile, 4, 1)
+    monkeypatch.setitem(ps.LAUNCH, "cpu", {"scalar": geom, "vector": geom})
+    assert ps.launch_config("force", True)[:2] == (bi, tile)
+    rho_g, dv_g = sweeps()
+    valid = np.asarray(plan.back_valid)
+    np.testing.assert_allclose(rho_g[valid], rho1[valid], rtol=1e-6)
+    scale = np.abs(dv1[valid]).max()
+    np.testing.assert_allclose(dv_g[valid] / scale, dv1[valid] / scale,
+                               atol=2e-6)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_seg_force_matches_blocked(dim):
+    """Fused force sweep vs the jnp blocked sweep on the same state;
+    masked tail lanes of the last j tile of each row must stay inert
+    (a non-finite lane would NaN the whole i row through coef * dx)."""
+    scene = _scene(dim=dim)
+    solver, state_s, ids, plan, meta, pack = _seg_setup(scene)
+    spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
+
+    scfg_b = SweepConfig(impl="blocked", block_size=128, window_cap=1024)
+    nd = gridops.build_neighbor_data(state_s, ids, spec, scfg_b)
+    rho = F.compute_densities(state_s, nd, spec, params, scfg_b)
+    rho, p = F.compute_pressures(rho, params)
+    state_s = dataclasses.replace(state_s, density=rho, pressure=p)
+    pack = ps.repack_eos(pack, rho, p)
+
+    dv_b = np.asarray(F.compute_forces(state_s, nd, spec, params, scfg_b))
+    dv_blk = ps.force_sweep_seg(
+        pack, meta, spec, params, scfg.block_size, interpret=_INTERPRET,
+    )
+    dv_p = np.asarray(dv_blk)
+    fluid = np.asarray(state_s.material) == 1
+    scale = np.abs(dv_b[fluid]).max()
+    np.testing.assert_allclose(
+        dv_p[fluid] / scale, dv_b[fluid] / scale, atol=5e-6
+    )
+
+
+def test_seg_force_react_matches_separate_sweeps(tmp_path):
+    """The fused force+reaction mode must equal the separate force and
+    reaction sweeps EXACTLY (same per-pair arithmetic, per-i select):
+    fluid rows carry dv, boundary rows the reaction force."""
+    scene = _rigid_scene(tmp_path)
     solver, state_s, ids, plan, meta, pack = _seg_setup(scene)
     spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
 
     rho = ps.density_sweep_seg(
-        pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-        tile=scfg.tile, interpret=_INTERPRET,
+        pack, meta, spec, params, scfg.block_size, interpret=_INTERPRET,
     )
     rho = jnp.where(plan.back_valid & state_s.fluid_mask, rho, state_s.density)
     rho, p = F.compute_pressures(rho, params)
     pack = ps.repack_eos(pack, rho, p)
 
-    kw = dict(tile=scfg.tile, interpret=_INTERPRET)
-    dv = ps.force_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                            scfg.window_cap, **kw)
-    rx = ps.reaction_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                               scfg.window_cap, **kw)
-    fr = ps.force_react_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                  scfg.window_cap, **kw)
+    kw = dict(interpret=_INTERPRET)
+    dv = ps.force_sweep_seg(pack, meta, spec, params, scfg.block_size, **kw)
+    rx = ps.reaction_sweep_seg(pack, meta, spec, params, scfg.block_size, **kw)
+    fr = ps.force_react_sweep_seg(pack, meta, spec, params, scfg.block_size, **kw)
     valid = np.asarray(plan.back_valid)
     fluid = np.asarray(state_s.material) == 1
     bound = np.asarray(state_s.material) == 0
@@ -289,46 +265,17 @@ def test_seg_bvol_active_block_skip_matches_full(tmp_path):
     equal the unskipped sweep BITWISE on every consumed row (boundary &
     back_valid), and the flags must actually skip some all-fluid blocks
     on a mostly-fluid scene."""
-    import json
-
-    from tisph_tpu.geometry.mesh import box_mesh, save_obj
-
-    mesh_path = tmp_path / "box.obj"
-    save_obj(box_mesh((0.35, 0.5, 0.35), (0.6, 0.75, 0.6)), mesh_path)
-    raw = {
-        "configuration": {
-            "dim": 3, "domainStart": [0.0] * 3, "domainEnd": [1.0] * 3,
-            "particleRadius": 0.04, "density0": 1000,
-            "gravitation": [0.0, -9.81, 0.0], "c_s": 40.0,
-        },
-        "rigidBodies": [
-            {"geometryFile": str(mesh_path), "scale": [1, 1, 1],
-             "translation": [0, 0, 0], "rotationAngle": 0,
-             "rotationAxis": [0, 1, 0], "velocity": [0, 0, 0],
-             "density": 500.0, "color": [150, 150, 150],
-             "isDynamic": True}
-        ],
-        "fluidBlocks": [
-            {"start": [0.15] * 3, "end": [0.6, 0.55, 0.6],
-             "velocity": [0.1, -0.4, 0.2], "density": 1000.0,
-             "color": [50, 100, 200]}
-        ],
-    }
-    p = tmp_path / "scene.json"
-    p.write_text(json.dumps(raw))
-    scene = tt.load_scene(p)
+    scene = _rigid_scene(tmp_path)
     solver, state_s, ids, plan, meta, pack = _seg_setup(scene)
     spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
 
-    kw = dict(tile=scfg.tile, interpret=_INTERPRET)
-    full = ps.bvol_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                             scfg.window_cap, **kw)
+    kw = dict(interpret=_INTERPRET)
+    full = ps.bvol_sweep_seg(pack, meta, spec, params, scfg.block_size, **kw)
     active = ps.bvol_active_blocks(pack, meta, scfg.block_size)
     act = np.asarray(active)
     assert act.any(), "no boundary-holding blocks found"
     assert (act == 0).any(), "no skippable all-fluid blocks in the scene"
-    skipped = ps.bvol_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                scfg.window_cap, active=active, **kw)
+    skipped = ps.bvol_sweep_seg(pack, meta, spec, params, scfg.block_size, active=active, **kw)
     valid = np.asarray(plan.back_valid)
     bound = np.asarray(state_s.material) == 0
     assert (bound & valid).any()
@@ -341,18 +288,14 @@ def test_seg_bvol_active_block_skip_matches_full(tmp_path):
     # and force_react (fluid|boundary rows) — bitwise on each consumer set
     fluid = np.asarray(state_s.material) == 1
     act_fl = ps.active_blocks(pack, meta, scfg.block_size, rows=(ps._FL,))
-    d_full = ps.density_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                  scfg.window_cap, **kw)
-    d_skip = ps.density_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                  scfg.window_cap, active=act_fl, **kw)
+    d_full = ps.density_sweep_seg(pack, meta, spec, params, scfg.block_size, **kw)
+    d_skip = ps.density_sweep_seg(pack, meta, spec, params, scfg.block_size, active=act_fl, **kw)
     np.testing.assert_array_equal(
         np.asarray(d_skip)[valid & fluid], np.asarray(d_full)[valid & fluid],
         err_msg="density block skip changed a consumed fluid row",
     )
-    f_full = ps.force_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                scfg.window_cap, **kw)
-    f_skip = ps.force_sweep_seg(pack, meta, spec, params, scfg.block_size,
-                                scfg.window_cap, active=act_fl, **kw)
+    f_full = ps.force_sweep_seg(pack, meta, spec, params, scfg.block_size, **kw)
+    f_skip = ps.force_sweep_seg(pack, meta, spec, params, scfg.block_size, active=act_fl, **kw)
     np.testing.assert_array_equal(
         np.asarray(f_skip)[valid & fluid], np.asarray(f_full)[valid & fluid],
         err_msg="force block skip changed a consumed fluid row",
@@ -360,10 +303,9 @@ def test_seg_bvol_active_block_skip_matches_full(tmp_path):
     act_fb = ps.active_blocks(pack, meta, scfg.block_size,
                               rows=(ps._FL, ps._BD))
     fr_full = ps.force_react_sweep_seg(pack, meta, spec, params,
-                                       scfg.block_size, scfg.window_cap, **kw)
+                                       scfg.block_size, **kw)
     fr_skip = ps.force_react_sweep_seg(pack, meta, spec, params,
-                                       scfg.block_size, scfg.window_cap,
-                                       active=act_fb, **kw)
+                                       scfg.block_size, active=act_fb, **kw)
     both = valid & (fluid | bound)
     np.testing.assert_array_equal(
         np.asarray(fr_skip)[both], np.asarray(fr_full)[both],
@@ -383,7 +325,7 @@ def test_seg_step_matches_blocked_trajectory():
     s_sg = tt.WCSPH(
         scene,
         sweep_cfg=SweepConfig(impl="pallas", block_size=128, window_cap=512,
-                              tile=128, interpret=_INTERPRET, layout="seg",
+                              interpret=_INTERPRET,
                               pad_capacity=8192),
     )
     st_s = s_sg.bind(state)
@@ -404,7 +346,7 @@ def test_seg_overflow_detected_and_regrown():
     solver = tt.WCSPH(
         scene,
         sweep_cfg=SweepConfig(impl="pallas", block_size=128, window_cap=512,
-                              tile=128, interpret=_INTERPRET, layout="seg",
+                              interpret=_INTERPRET,
                               pad_capacity=8192),
     )
     state = solver.bind(state)
@@ -432,8 +374,8 @@ def test_amortized_resort_divergence():
         solver = tt.WCSPH(
             scene,
             sweep_cfg=SweepConfig(impl="pallas", block_size=128,
-                                  window_cap=512, tile=128, interpret=_INTERPRET,
-                                  layout="seg", pad_capacity=8192,
+                                  window_cap=512, interpret=_INTERPRET,
+                                  pad_capacity=8192,
                                   resort_every=resort_every),
         )
         state = solver.bind(pad_state_capacity(state, 2048))
@@ -482,8 +424,7 @@ def test_seg_sweeps_with_empty_stencil_rows():
     nd = gridops.build_neighbor_data(state_s, ids, spec, scfg_b)
     rho_b = np.asarray(F.compute_densities(state_s, nd, spec, params, scfg_b))
     rho_p = np.asarray(ps.density_sweep_seg(
-        pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-        tile=scfg.tile, interpret=_INTERPRET,
+        pack, meta, spec, params, scfg.block_size, interpret=_INTERPRET,
     ))
     fluid = np.asarray(state_s.material) == 1
     np.testing.assert_allclose(rho_p[fluid], rho_b[fluid], rtol=2e-5)
@@ -493,8 +434,7 @@ def test_seg_sweeps_with_empty_stencil_rows():
     pack2 = ps.repack_eos(pack, rho, p)
     dv_b = np.asarray(F.compute_forces(state2, nd, spec, params, scfg_b))
     dv_p = np.asarray(ps.force_sweep_seg(
-        pack2, meta, spec, params, scfg.block_size, scfg.window_cap,
-        tile=scfg.tile, interpret=_INTERPRET,
+        pack2, meta, spec, params, scfg.block_size, interpret=_INTERPRET,
     ))
     assert np.isfinite(dv_p[fluid]).all()
     scale = np.abs(dv_b[fluid]).max()
@@ -544,8 +484,8 @@ def test_seg_plan_back_valid_is_covered_prefix(block_cap):
     scene = _scene(dim=3)
     state = tt.build_state(scene)
     solver = tt.WCSPH(scene, sweep_cfg=SweepConfig(
-        impl="pallas", block_size=128, window_cap=512, tile=128,
-        interpret=_INTERPRET, layout="seg", pad_capacity=8192))
+        impl="pallas", block_size=128, window_cap=512, interpret=_INTERPRET,
+        pad_capacity=8192))
     state = solver.bind(pad_state_capacity(state, 2048))
     spec = solver.spec
     _, ids, _ = gridops.sort_state_by_cell(state, spec)
@@ -590,7 +530,7 @@ def test_seg_separate_ipack_matches_offset_addressing(mode):
     scene = _scene()
     solver, state_s, ids, _, _, pack = _seg_setup(scene, wcap=1024)
     spec, params, scfg = solver.spec, solver.params, solver.sweep_cfg
-    block, wcap, tile = scfg.block_size, scfg.window_cap, scfg.tile
+    block, wcap = scfg.block_size, scfg.window_cap
 
     if mode == "force":
         scfg_b = SweepConfig(impl="blocked", block_size=128, window_cap=1024)
@@ -603,16 +543,14 @@ def test_seg_separate_ipack_matches_offset_addressing(mode):
     ids_l = ids[off:off + n_loc]
     bounds_e = gridops.csr_bounds_hist(ids, spec)
     plan = gridops.seg_plan(ids_l, spec, block, 4096 // block)
-    meta, _ = ps.seg_block_meta(
-        plan, ids, spec, block, wcap, bounds=bounds_e, own_ids=ids_l
-    )
+    meta, _ = ps.seg_block_meta(plan, ids, spec, block, wcap, bounds=bounds_e)
     fn = ps.density_sweep_seg if mode == "density" else ps.force_sweep_seg
 
     meta_off = meta._replace(iblk=meta.iblk + off // block)
-    out_a = np.asarray(fn(pack, meta_off, spec, params, block, wcap,
-                          tile=tile, interpret=_INTERPRET))[off:off + n_loc]
-    out_b = np.asarray(fn(pack, meta, spec, params, block, wcap,
-                          tile=tile, interpret=_INTERPRET,
+    out_a = np.asarray(fn(pack, meta_off, spec, params, block,
+                          interpret=_INTERPRET))[off:off + n_loc]
+    out_b = np.asarray(fn(pack, meta, spec, params, block,
+                          interpret=_INTERPRET,
                           ipack=pack[:, off:off + n_loc]))
     keep = np.asarray(plan.back_valid) & (np.asarray(ids_l) < spec.num_cells)
     assert keep.any()

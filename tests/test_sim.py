@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import pytest
 
-import tisph_tpu as tt
-from tisph_tpu.models.state import MATERIAL_BOUNDARY
+import tisph as tt
+from tisph.models.state import MATERIAL_BOUNDARY
 
 
 def _run(scene_path, steps, solver_cls=tt.WCSPH):
@@ -79,8 +79,8 @@ def test_boundary_particles_never_move():
     scene = tt.scene_from_dict(raw)
     state = tt.build_state(scene)
     # Add a boundary raft manually (below the fluid).
-    import tisph_tpu.geometry.sampler as sampler
-    from tisph_tpu.models.state import make_state
+    import tisph.geometry.sampler as sampler
+    from tisph.models.state import make_state
 
     raft = sampler.cube_lattice([0.3, 0.3], [1.1, 0.4], scene.particle_radius)
     nb = raft.shape[0]
@@ -119,7 +119,7 @@ def test_run_auto_recapacity():
     """solver.run grows the window cap when fluid compaction overflows it
     (the reference corrupts memory on cell overflow instead,
     partice_systemv3.py:214-217)."""
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.ops.neighbors import SweepConfig
 
     scene = tt.load_scene("scenes/demo_2d.json")
     state = tt.build_state(scene)
@@ -144,17 +144,17 @@ def test_legacy_solver_runs():
 
 
 def test_legacy_solver_with_pallas_config():
-    """Regression: a pallas SweepConfig (the TPU auto-default) must fall
+    """Regression: a pallas SweepConfig (the GPU auto-default) must fall
     back to the generic blocked path for non-WCSPH sweeps instead of
     raising 'unknown sweep impl'."""
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.ops.neighbors import SweepConfig
 
     scene = tt.load_scene("scenes/demo_2d.json")
     state = tt.build_state(scene)
     solver = tt.WCSPHLegacy(
         scene,
         sweep_cfg=SweepConfig(impl="pallas", block_size=128, window_cap=512,
-                              tile=128, interpret=True),
+                              interpret=True),
     )
     state = solver.bind(state)
     state = solver.step(state)
@@ -168,7 +168,7 @@ def test_overflow_caught_within_one_dispatch():
     must be detected and re-capacitated on the FIRST dispatch even when the
     metrics check interval is far larger than the run (VERDICT r1 #6 — the
     old run() only sampled occupancy every check_every steps)."""
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.ops.neighbors import SweepConfig
 
     scene = tt.load_scene("scenes/demo_2d.json")
     state = tt.build_state(scene)
@@ -187,8 +187,8 @@ def test_occ_window_tracks_required_window():
     """state.occ_window after a step equals the longest block window the
     step's neighbor structure required (computed independently here)."""
     import jax.numpy as jnp
-    from tisph_tpu.ops import grid as gridops
-    from tisph_tpu.ops.neighbors import SweepConfig
+    from tisph.ops import grid as gridops
+    from tisph.ops.neighbors import SweepConfig
 
     scene = tt.load_scene("scenes/demo_2d.json")
     state = tt.build_state(scene)

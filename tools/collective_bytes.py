@@ -4,8 +4,8 @@ Lowers the ShardedWCSPH step (and an amortized R-group) for an N-device
 mesh, compiles it on the virtual CPU mesh, and walks the optimized HLO for
 communication ops (collective-permute, all-to-all, all-gather, all-reduce,
 reduce-scatter), summing each op's output bytes.  The SPMD partitioner
-inserts the SAME collective structure on the virtual mesh as on a real ICI
-mesh, so the byte counts are hardware-faithful even though the timing is
+inserts the SAME collective structure on the virtual mesh as on a mesh of
+cards, so the byte counts are hardware-faithful even though the timing is
 not — this is the measured input to the multi-chip scaling model in
 docs/design.md ("The bridge to 1e9").
 
@@ -173,9 +173,9 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    import tisph_tpu as tt
-    from tisph_tpu.ops.neighbors import SweepConfig
-    from tisph_tpu.parallel import (
+    import tisph as tt
+    from tisph.ops.neighbors import SweepConfig
+    from tisph.parallel import (
         ShardedWCSPH, ShardedWCSPHRect, make_mesh, make_mesh2d, make_mesh3d,
     )
 
@@ -206,8 +206,8 @@ def main():
         mesh2 = (make_mesh2d(*sizes) if len(sizes) == 2
                  else make_mesh3d(*sizes))
         cfg = SweepConfig(
-            impl="pallas", block_size=128, window_cap=1152, tile=128,
-            interpret=True, layout="seg", resort_every=args.resort,
+            impl="pallas", block_size=128, window_cap=1152,
+            interpret=True, resort_every=args.resort,
         )
         solver = ShardedWCSPHRect(scene, mesh2, sweep_cfg=cfg)
         state = solver.bind(tt.build_state(scene))
@@ -256,8 +256,8 @@ def main():
     res = {"devices": args.devices}
     for mode in ("global", "exchange"):
         cfg = SweepConfig(
-            impl="pallas", block_size=128, window_cap=1152, tile=128,
-            interpret=True, layout="seg", resort_every=args.resort,
+            impl="pallas", block_size=128, window_cap=1152,
+            interpret=True, resort_every=args.resort,
         )
         solver = ShardedWCSPH(scene, mesh, sweep_cfg=cfg, resort=mode)
         state = solver.bind(tt.build_state(scene))

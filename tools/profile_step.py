@@ -1,6 +1,6 @@
-"""Per-phase timing of one WCSPH step on the real TPU.
+"""Per-phase timing of one WCSPH step on the card.
 
-Decomposes the flagship pallas step (models/wcsph.py:_step_fn_pallas) into
+Decomposes the Pallas seg step (models/wcsph.py:_seg_build/_seg_apply) into
 isolated jitted pieces and times each with block_until_ready, so ROADMAP's
 perf levers can be attributed to the phase they actually move.
 
@@ -16,10 +16,10 @@ import time
 import jax
 import jax.numpy as jnp
 
-import tisph_tpu as tt
-from tisph_tpu.ops import forces as F
-from tisph_tpu.ops import grid as gridops
-from tisph_tpu.ops.pallas import sweeps as ps
+import tisph as tt
+from tisph.ops import forces as F
+from tisph.ops import grid as gridops
+from tisph.ops.pallas import sweeps as ps
 
 
 def timeit(fn, args, reps, warmup=2):
@@ -38,16 +38,11 @@ def main():
     ap.add_argument("scene", nargs="?", default="scenes/demo_3d.json")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--block", type=int, default=None)
-    ap.add_argument("--tile", type=int, default=None)
     ap.add_argument("--window", type=int, default=None)
-    ap.add_argument("--layout", choices=["linear", "seg"], default=None)
-    ap.add_argument("--sub", type=int, default=None,
-                    help="seg layout: sub-slabs per block (SweepConfig"
-                         ".sub_slabs)")
     ap.add_argument("--settle", type=int, default=50,
                     help="steps to run before measuring (mid-collapse state)")
     ap.add_argument("--resort", type=int, default=1,
-                    help="seg layout: resort_every amortization factor; the "
+                    help="resort_every amortization factor; the "
                          "full-step row then times a whole R-substep group "
                          "via rollout (per-substep cost = group / R)")
     args = ap.parse_args()
@@ -55,24 +50,23 @@ def main():
     scene = tt.load_scene(args.scene)
     state = tt.build_state(scene)
     solver = tt.WCSPH(scene)
-    if args.layout:
-        solver.pallas_layout = args.layout
     state = solver.bind(state)
     scfg = solver.sweep_cfg
-    if args.block or args.tile or args.window or args.sub:
+    if scfg.impl != "pallas":
+        raise SystemExit(f"profiles the pallas sweeps; this backend runs "
+                         f"{scfg.impl!r}")
+    if args.block or args.window:
         scfg = dataclasses.replace(
             scfg,
             block_size=args.block or scfg.block_size,
-            tile=args.tile or scfg.tile,
             window_cap=args.window or scfg.window_cap,
-            sub_slabs=args.sub or scfg.sub_slabs,
         )
         solver.sweep_cfg = scfg
         state = solver.bind(state)
     spec, params = solver.spec, solver.params
     n = int(jax.device_get(state.num_active))
     print(f"n={n}  impl={scfg.impl} block={scfg.block_size} "
-          f"window={scfg.window_cap} tile={scfg.tile} cap={state.capacity}")
+          f"window={scfg.window_cap} cap={state.capacity}")
 
     # settle so the measured configuration is mid-collapse
     state = solver.rollout(state, args.settle)
@@ -93,8 +87,6 @@ def main():
     t_sort = timeit(sort, (state,), args.reps)
     st_s, ids, _ = sort(state)
 
-    seg = scfg.layout == "seg"
-    extra = {}
     pack_fn = jax.jit(
         lambda st, ids: ps.pack_state(
             st.x, st.v, st.density, st.pressure, st.mass, st.volume,
@@ -103,50 +95,23 @@ def main():
     )
     t_pack = timeit(pack_fn, (st_s, ids), args.reps)
     pack = pack_fn(st_s, ids)
-    if seg:
-        block_cap = scfg.pad_capacity // scfg.block_size
-        plan_fn = jax.jit(
-            lambda ids: gridops.seg_plan(ids, spec, scfg.block_size, block_cap)
+    block_cap = scfg.pad_capacity // scfg.block_size
+    plan_fn = jax.jit(
+        lambda ids: gridops.seg_plan(ids, spec, scfg.block_size, block_cap)
+    )
+    t_plan = timeit(plan_fn, (ids,), args.reps)
+    plan = plan_fn(ids)
+    meta_fn = jax.jit(
+        lambda plan, ids: ps.seg_block_meta(
+            plan, ids, spec, scfg.block_size, scfg.window_cap,
         )
-        extra["plan"] = timeit(plan_fn, (ids,), args.reps)
-        plan = plan_fn(ids)
-        meta_fn = jax.jit(
-            lambda plan, ids: ps.seg_block_meta(
-                plan, ids, spec, scfg.block_size, scfg.window_cap,
-                sub=scfg.sub_slabs,
-            )
-        )
-        t_meta = timeit(meta_fn, (plan, ids), args.reps)
-        meta, _ = meta_fn(plan, ids)
-        # (no back-gather phase anymore: the seg kernels write their
-        # output compactly through the per-block own-lane mask)
-        dens_fn = lambda pack, meta: ps.density_sweep_seg(
-            pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-            tile=scfg.tile, fast_math=scfg.fast_math,
-            sub=scfg.sub_slabs,
-        )
-        force_fn = lambda pack, meta: ps.force_sweep_seg(
-            pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-            tile=scfg.tile, fast_math=scfg.fast_math,
-            sub=scfg.sub_slabs,
-        )
-    else:
-        meta_fn = jax.jit(
-            lambda st, ids: ps.block_meta(
-                ids, gridops.cell_coords(st.x, spec), spec,
-                scfg.block_size, scfg.window_cap,
-            )
-        )
-        t_meta = timeit(meta_fn, (st_s, ids), args.reps)
-        meta, _ = meta_fn(st_s, ids)
-        dens_fn = lambda pack, meta: ps.density_sweep(
-            pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-            tile=scfg.tile, fast_math=scfg.fast_math,
-        )
-        force_fn = lambda pack, meta: ps.force_sweep(
-            pack, meta, spec, params, scfg.block_size, scfg.window_cap,
-            tile=scfg.tile, fast_math=scfg.fast_math,
-        )
+    )
+    t_meta = timeit(meta_fn, (plan, ids), args.reps)
+    meta, _ = meta_fn(plan, ids)
+    dens_fn = lambda pack, meta: ps.density_sweep_seg(
+        pack, meta, spec, params, scfg.block_size)
+    force_fn = lambda pack, meta: ps.force_sweep_seg(
+        pack, meta, spec, params, scfg.block_size)
 
     dens = jax.jit(dens_fn)
     t_dens = timeit(dens, (pack, meta), args.reps)
@@ -170,7 +135,7 @@ def main():
 
     # dispatch-latency floor: a trivial jitted op on a step-sized array,
     # timed the same way.  EVERY isolated phase number above includes ~this
-    # much per-dispatch overhead (tunneled runtimes: can be >1 ms), which
+    # much per-dispatch overhead, which
     # the real step pays ONCE for the whole fused graph — so "sum of
     # parts" systematically overcounts small phases by ~(num_phases x
     # null).  Subtract it before attributing cost to a phase.
@@ -179,7 +144,7 @@ def main():
 
     occ = int(jax.device_get(state.occ_window))
     parts = {
-        "sort": t_sort, **extra, "meta": t_meta, "pack": t_pack,
+        "sort": t_sort, "plan": t_plan, "meta": t_meta, "pack": t_pack,
         "density": t_dens, "repack": t_repack, "force": t_force,
         "eos": t_eos, "advect+clamp": t_adv,
     }
